@@ -1,17 +1,17 @@
-"""dsd2dxd_tpu — a TPU-native DSD→PCM/DXD transcoding framework.
+"""dsd2dxd_tpu — a GPU-accelerated DSD→PCM/DXD transcoding framework.
 
 Built from scratch with the capabilities of the reference CLI tool
-``clone206/dsd2dxd`` (Rust, CPU) but architected TPU-first:
+``clone206/dsd2dxd`` (Rust, CPU), with the DSP on an accelerator:
 
 - the hot DSP path (1-bit unpack, polyphase FIR decimation, level scaling,
-  dither, requantization, peak tracking) runs on TPU as channel-batched,
-  overlap-save-tiled JAX/Pallas computations;
+  dither, requantization, peak tracking) runs on the device as
+  channel-batched, tiled JAX/XLA computations;
 - container parsing (.dsf/.dff), ID3v2 metadata, and encoders
   (WAV/AIFF/AIFC/FLAC) run on the host, with the byte-hot paths
-  (PCM packing, FLAC encoding, noise-shaped dither) in a native C++
-  extension (``dsd2dxd_tpu.native``);
-- multi-stream scale comes from batching tiles over a
-  ``jax.sharding.Mesh`` rather than a CPU thread pool.
+  (FLAC encoding, noise-shaped dither) in a native C++ extension
+  (``dsd2dxd_tpu.native``);
+- multi-device scale comes from spreading files over devices, or one
+  stream's overlap-save tiles over a ``jax.sharding.Mesh``.
 
 Public API mirrors the reference engine crate ``rdsd2pcm``
 (see /root/reference/src/main.rs:27-31 for the reference surface).

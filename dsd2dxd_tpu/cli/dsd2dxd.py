@@ -12,7 +12,7 @@ src/main.rs:40-133; surface table SURVEY.md §2.4), including:
 - unexpanded-glob warning + skip, input sort/dedup, canonicalization,
   base_dir = common ancestor (src/main.rs:216-277);
 - parallel conversion with fail-fast on the first error
-  (src/main.rs:279-300) — worker threads feed the TPU dispatch queue;
+  (src/main.rs:279-300) — worker threads feed the device dispatch queue;
 - "Processed N inputs in HH:MM:SS" summary (src/main.rs:302-310);
 - exit code 1 with a red [ERROR] line on failure (src/lib.rs:24-43).
 
@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dsd2dxd",
         description="Convert DSD (.dsf/.dff/raw) to PCM/DXD "
-                    "(WAV/AIFF/AIFC/FLAC/stdout), TPU-accelerated.",
+                    "(WAV/AIFF/AIFC/FLAC/stdout), GPU-accelerated.",
     )
     from dsd2dxd_tpu import __version__
 
@@ -202,9 +202,9 @@ def worker_count() -> int:
 
 
 def run(argv=None) -> int:
-    from dsd2dxd_tpu.utils.device import apply_platform_env
+    from dsd2dxd_tpu.utils.device import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     log = init_logging(verbose=args.verbose, quiet=args.quiet)
     t_start = time.monotonic()
@@ -242,7 +242,7 @@ def run(argv=None) -> int:
             # Raw PCM to stdout must not interleave across files: serialize.
             workers = 1 if writes_stdout else min(worker_count(), len(files))
             # File-level data parallelism across devices: round-robin the
-            # batch, one pipeline per device (the TPU analog of the
+            # batch, one pipeline per device (the device analog of the
             # reference's Rayon fan-out, src/main.rs:279-297). With one
             # device this is a no-op; enough host workers are kept to
             # feed every device.

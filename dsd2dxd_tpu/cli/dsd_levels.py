@@ -62,9 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv=None) -> int:
-    from dsd2dxd_tpu.utils.device import apply_platform_env
+    from dsd2dxd_tpu.utils.device import enable_compile_cache
 
-    apply_platform_env()
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     log = init_logging(verbose=args.verbose, quiet=args.quiet)
     fmt = FmtType.from_char(args.fmt)

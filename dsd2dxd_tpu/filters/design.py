@@ -14,9 +14,9 @@ reference documents (reference README.md:252-254):
 - minimal taps, a little aliasing permitted.
 
 Chains are multi-stage (the reference uses cascaded FIRs for the 48k
-multiples, README.md:230; we cascade everywhere because on TPU each stage
-is one strided convolution and early cheap stages cut the tap budget by
-orders of magnitude):
+multiples, README.md:230; we cascade everywhere because on the device each
+stage is one static set of sliced multiply-adds and early cheap stages
+cut the tap budget by orders of magnitude):
 
 - 44.1k-multiple targets (pure 2^r decimation, SURVEY.md §2.5): a chain
   of cheap half-rate decimators, then one final "quality" /2 stage whose
@@ -24,8 +24,8 @@ orders of magnitude):
 - 48k-multiple targets: the SAME pure-2^r chain down to the 44.1k-family
   rate with the matching exponent (base = out*147/160, e.g. 96k -> 88.2k),
   then one fixed x160/147 family-conversion polyphase stage on the small
-  PCM output. The head is therefore fused-kernel eligible end to end
-  (ops/fused.py) and carries the bank's character; the conversion stage
+  PCM output. The head is therefore the same pure decimation cascade as
+  the 44.1k family and carries the bank's character; the conversion stage
   is transparent (its transition sits entirely above the head's) and its
   stopband kills every image that could fold back into the audio band.
 
@@ -288,7 +288,7 @@ def _family_stage(base_hz: int, out_hz: int) -> Stage:
 def _chain_48k(filt: FilterType, in_hz: int, out_hz: int) -> list[Stage]:
     # in = 44.1k*64 * 2^p ; out = 48k * 2^q. Plan: the bank's own pure
     # /2^r chain down to base = out*147/160 (the 44.1k-family rate with
-    # the same exponent — this part runs the fused single-pass kernel),
+    # the same exponent),
     # then the fixed x160/147 family-conversion stage on the PCM output.
     base_hz = out_hz * 147 // 160
     assert base_hz * 160 == out_hz * 147

@@ -229,3 +229,19 @@ def check_filter_choice(filt: FilterType, in_rate: DsdRate, out_rate: int) -> No
                 "88200/176400/352800 output rates"
             )
     check_rate_pair(in_rate, out_rate)
+
+
+def rate_cells() -> list[tuple[FilterType, DsdRate, int]]:
+    """Every valid (filter bank, input rate, output rate) cell: the 22
+    Equiripple rate-matrix cells plus the XLD, DSD2PCM and Chebyshev
+    cells (29 in all)."""
+    cells = []
+    for filt in FilterType:
+        for rate in DsdRate:
+            for out_hz in valid_output_rates(rate):
+                try:
+                    check_filter_choice(filt, rate, out_hz)
+                except ValueError:
+                    continue
+                cells.append((filt, rate, out_hz))
+    return cells

@@ -13,6 +13,7 @@ from __future__ import annotations
 import hashlib
 import struct
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 
@@ -193,7 +194,11 @@ def _meta_u32(body: bytes, off: int, endian: str, block: str) -> int:
     return struct.unpack(endian + "I", body[off:off + 4])[0]
 
 
-def decode_flac(data: bytes, check_crc: bool = True) -> FlacStream:
+def decode_flac(data: bytes, check_crc: bool = True,
+                max_frames: Optional[int] = None) -> FlacStream:
+    """Decode a whole FLAC stream, or with ``max_frames`` only its first
+    frames (then ``samples`` holds those frames and ``md5_ok`` is
+    False: the stream MD5 covers every sample)."""
     if data[:4] != b"fLaC":
         raise ValueError("not a FLAC stream")
     pos = 4
@@ -259,7 +264,8 @@ def decode_flac(data: bytes, check_crc: bool = True) -> FlacStream:
     frames = []
     expect_index = 0
     decoded = 0  # running count: sum-per-iteration made the oracle O(n^2)
-    while pos < len(data) and info.total_samples > decoded:
+    while (pos < len(data) and info.total_samples > decoded
+           and (max_frames is None or len(frames) < max_frames)):
         br = BitReader(data, pos)
         if br.u(14) != 0x3FFE:
             raise ValueError(f"lost frame sync at byte {pos}")
@@ -325,6 +331,8 @@ def decode_flac(data: bytes, check_crc: bool = True) -> FlacStream:
                else np.zeros((0, info.channels), dtype=np.int64))
     samples = samples[:info.total_samples]
     info.samples = samples.astype(np.int32)
+    if max_frames is not None and decoded < info.total_samples:
+        return info
 
     # MD5 over little-endian raw samples, ceil(bps/8) bytes each
     nbytes = (info.bits_per_sample + 7) // 8

@@ -79,26 +79,6 @@ class NativeLib:
         d.dsdkit_flac_free.argtypes = [ctypes.c_void_p]
         d.dsdkit_flac_free.restype = None
 
-        i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
-        d.dsdkit_interleave24.argtypes = [
-            u8p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_size_t,
-            ctypes.c_int, u8p]
-        d.dsdkit_interleave24.restype = None
-        d.dsdkit_interleave16.argtypes = [
-            i16p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_size_t,
-            ctypes.c_int, u8p]
-        d.dsdkit_interleave16.restype = None
-        d.dsdkit_deplane24.argtypes = [
-            u8p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_size_t, i32p]
-        d.dsdkit_deplane24.restype = None
-        d.dsdkit_deplane16.argtypes = [
-            i16p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint32,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_size_t, i32p]
-        d.dsdkit_deplane16.restype = None
-
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         d.dsdkit_njad_new.argtypes = [ctypes.c_uint32]
         d.dsdkit_njad_new.restype = ctypes.c_void_p
@@ -153,46 +133,6 @@ class NativeLib:
 
     def flac_free(self, enc: int) -> None:
         self._dll.dsdkit_flac_free(enc)
-
-    # -- blocked byte-plane interleaving (ops/fused emit="planes") -----------
-
-    def interleave_planes(self, planes: np.ndarray, layout, n_frames: int,
-                          big_endian: bool = False) -> bytes:
-        """(3, rows, cols) u8 or (rows, cols) int16 blocked planes ->
-        frame-interleaved wire bytes (see ops/fused.PlaneLayout)."""
-        if planes.ndim == 2:
-            planes = np.ascontiguousarray(planes, dtype=np.int16)
-            rows, cols = planes.shape
-            out = np.empty(n_frames * layout.channels * 2, dtype=np.uint8)
-            self._dll.dsdkit_interleave16(
-                planes, rows, cols, layout.channels, layout.batch,
-                layout.sub_cols, n_frames, 1 if big_endian else 0, out)
-            return out.tobytes()
-        planes = np.ascontiguousarray(planes, dtype=np.uint8)
-        _three, rows, cols = planes.shape
-        out = np.empty(n_frames * layout.channels * 3, dtype=np.uint8)
-        self._dll.dsdkit_interleave24(
-            planes.reshape(-1), rows, cols, layout.channels, layout.batch,
-            layout.sub_cols, n_frames, 1 if big_endian else 0, out)
-        return out.tobytes()
-
-    def deplane_frames(self, planes: np.ndarray, layout,
-                       n_frames: int) -> np.ndarray:
-        """Blocked planes -> (frames, channels) int32 (sign-extended)."""
-        out = np.empty((n_frames, layout.channels), dtype=np.int32)
-        if planes.ndim == 2:
-            planes = np.ascontiguousarray(planes, dtype=np.int16)
-            rows, cols = planes.shape
-            self._dll.dsdkit_deplane16(
-                planes, rows, cols, layout.channels, layout.batch,
-                layout.sub_cols, n_frames, out.reshape(-1))
-            return out
-        planes = np.ascontiguousarray(planes, dtype=np.uint8)
-        _three, rows, cols = planes.shape
-        self._dll.dsdkit_deplane24(
-            planes.reshape(-1), rows, cols, layout.channels, layout.batch,
-            layout.sub_cols, n_frames, out.reshape(-1))
-        return out
 
     # -- NJAD requantizer ----------------------------------------------------
 

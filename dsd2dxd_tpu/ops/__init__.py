@@ -1,1 +1,1 @@
-"""Device-side DSP ops (JAX/XLA/Pallas) and signal synthesis utilities."""
+"""Device-side DSP ops (JAX/XLA) and signal synthesis utilities."""

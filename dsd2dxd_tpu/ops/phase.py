@@ -1,17 +1,15 @@
-"""Phase-major multirate resampling — the TPU-native formulation.
+"""Phase-major multirate resampling — the device DSP path.
 
 The naive formulation (one `conv_general_dilated` per stage over a
-multi-megasample 1-D stream with a tiny channel count) is pathological on
-TPU: XLA's space-to-batch rewrite pads the (8,128)-tiled intermediates by
-16-32x, OOMs the compiler at 4 MiB tiles, and lands off the MXU/VPU fast
-paths (measured: 6x real-time, see bench history). This module replaces
-it with a layout-first design:
+multi-megasample 1-D stream with a tiny channel count, ops/resample.py)
+is kept as the test reference. This module instead uses a layout-first
+design that XLA compiles to fused elementwise loops:
 
 **Representation.** A stream x[i] is stored phase-major as a (C, P, K)
 array: element i lives at [c, i mod P, i div P]. K (millions) is the
-lane dimension; P (1..40) the sublane dimension. The 1-bit unpack
-produces this layout for free: bits (C, 8, B) with bit position as the
-phase axis — no interleaving transpose anywhere in the pipeline.
+long, contiguous axis; P (1..40) is small. The 1-bit unpack produces
+this layout for free: bits (C, 8, B) with bit position as the phase
+axis — no interleaving transpose anywhere in the pipeline.
 
 **Stage algebra.** For a stage (taps h, up L, down M) consuming a
 P_in-phase stream and producing y[j] = sum_k h[k] v[jM - k] (v the
@@ -21,8 +19,8 @@ output phase rho (j = P_out*kappa + rho), every contributing tap k
 with Di = M*P_out/L — a FIXED input phase r = i mod P_in and a lane
 slice of stride s = Di/P_in (s = 1 for every /2 stage). Each stage is
 therefore a static set of (coefficient, phase, lane-offset) terms:
-pure static-sliced fused multiply-adds on the VPU, one pass per tap,
-zero dynamic indexing, zero layout changes.
+pure static-sliced multiply-adds, which XLA fuses into one loop per
+stage, with zero dynamic indexing and zero layout changes.
 
 Streaming state is a (C, P_in, H) lane-suffix of each stage's input —
 carried through the jitted step exactly like ops/resample.py's conv
@@ -172,7 +170,7 @@ def unpack_bits_phase(x_u8: jax.Array, dtype=jnp.float32) -> jax.Array:
     """(C, B) uint8 MSB-first -> (C, 8, B) phase-major ±1 samples.
 
     Stream index i = 8*byte + pos maps to [c, pos, byte]: exactly the
-    P=8 phase-major layout — the natural TPU layout is also the free one.
+    P=8 phase-major layout, produced without any transpose.
     """
     shifts = jnp.arange(7, -1, -1, dtype=jnp.uint8).reshape(1, 8, 1)
     bits = (x_u8[:, None, :] >> shifts) & jnp.uint8(1)
@@ -233,14 +231,34 @@ def plan_dense_coefs(plan: PhasePlan, dtype=np.float32) -> np.ndarray:
     return g
 
 
+def split_dense_coefs(g: np.ndarray) -> np.ndarray:
+    """(p_out, p_in, W) -> (2, p_out, p_in, W): slice 1 holds each output
+    phase's largest-magnitude coefficient, slice 0 all the others.
+
+    The matmul form sums the small taps in one accumulation and adds the
+    big tap's product last, so the long f32 accumulation runs on small
+    partial sums. For the x160/147 stage this cuts the stage's own f32
+    error from ~0.24 to ~0.16 LSB24 RMS (the output's own rounding is
+    ~0.14), which keeps the 48k-family chains under the 24-bit TPDF
+    floor (tests/test_phase.py)."""
+    big = np.zeros_like(g)
+    flat = g.reshape(g.shape[0], -1)
+    idx = np.argmax(np.abs(flat), axis=1)
+    rows = np.arange(g.shape[0])
+    big.reshape(g.shape[0], -1)[rows, idx] = flat[rows, idx]
+    return np.stack([g - big, big])
+
+
 def stage_apply_phase_matmul(x: jax.Array, hist: jax.Array, plan: PhasePlan,
                              g: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Matmul form of stage_apply_phase for tap-heavy stages (the rational
     48k quality stage has ~4800 terms: per-term slicing would bloat the
-    graph and the compile). W window slices feed ONE dot_general on the
-    MXU: out[c, rho, kappa] = sum_{r,w} g[rho, r, w] * xin[c, r,
+    graph and the compile). W window slices feed ONE dot_general:
+    out[c, rho, kappa] = sum_{r,w} g[rho, r, w] * xin[c, r,
     kappa*s + base_min + w]. Work is p_in*W/terms-per-output denser than
-    minimal but runs on the systolic array."""
+    minimal but runs as one library matmul. ``g`` is (p_out, p_in, W), or
+    (S, p_out, p_in, W) coefficient slices whose outputs are summed in
+    order (split_dense_coefs)."""
     x = rephase(x, plan.rephase)
     c, p_in, k_in = x.shape
     H = plan.hist_lanes
@@ -256,14 +274,18 @@ def stage_apply_phase_matmul(x: jax.Array, hist: jax.Array, plan: PhasePlan,
         windows.append(jax.lax.slice(xin, (0, 0, start), (c, p_in, limit),
                                      (1, 1, s)))
     xw = jnp.stack(windows, axis=3)  # (C, p_in, K_out, W)
-    # Precision.HIGHEST: the TPU MXU's default bf16 passes cost ~1e-3
-    # relative error — three orders of magnitude over the 24-bit dither
-    # floor (measured on chip via tools/chipcheck.py; CPU tests never see
-    # it). HIGHEST keeps true f32 accumulation; the stage is a tiny
-    # fraction of chain FLOPs, so the extra MXU passes are free.
-    y = jnp.einsum("crkw,prw->cpk", xw, g,
+    # Precision.HIGHEST: on a GPU the default precision lets cuBLAS run
+    # f32 matmuls in TF32 (10-bit mantissa, ~1e-3 relative error) —
+    # three orders of magnitude over the 24-bit dither floor, and CPU
+    # tests never see it. HIGHEST keeps true f32 products and
+    # accumulation; the stage is a small fraction of chain work.
+    gs = g if g.ndim == 4 else g[None]
+    z = jnp.einsum("crkw,sprw->scpk", xw, gs,
                    preferred_element_type=xin.dtype,
                    precision=jax.lax.Precision.HIGHEST)
+    y = z[0]
+    for part in z[1:]:
+        y = y + part
     new_hist = xin[:, :, xin.shape[2] - H:] if H else hist
     return y, new_hist
 
@@ -281,8 +303,7 @@ def plan_banded_natural(plan: PhasePlan):
     and max_rho i_off = floor(M*(p_out-1)/L) < p_in whenever L > M). So
     the stage is: free reshape (C, n) -> (C, K, p_in), one history
     concat on the minor axis -> (C, K, U), ONE einsum with the dense
-    (p_out, U) band, free reshape back. No transposes, no W-stack;
-    measured on chip vs the phase-major matmul in tools/tailbanded.py.
+    (p_out, U) band, free reshape back. No transposes, no W-stack.
 
     Returns (band (p_out, U) f32 ndarray, nhist) or None when the plan
     isn't band-eligible (decimating stage, band wider than one block, or
@@ -313,8 +334,7 @@ def plan_banded_natural_blocks(band, block: int):
     The (p_out, U) band is ~71% zeros even in natural layout (each
     output phase's taps cover ~Tmax of the U columns, sliding by M/L
     per row), so contracting all U columns for every output wastes
-    MXU passes — at Precision.HIGHEST (6 bf16 passes) that waste is
-    re-streamed six times. Splitting the rows into blocks of `block`
+    multiply-adds. Splitting the rows into blocks of `block`
     consecutive output phases shrinks each block's column window to
     ~ceil(block*M/L) + Tmax (~48 vs 164 for the x160/147 stage at
     block=32, i.e. 3.4x fewer MACs), with plain minor-axis slices as
@@ -357,7 +377,7 @@ def stage_apply_rational_natural(y: jax.Array, hist: jax.Array,
                            axis=1)
     w = jnp.concatenate([prev, yr], axis=2)  # (C, K, nhist + p_in)
     # HIGHEST: same 24-bit-floor reasoning as the phase-major matmul
-    # form above (HIGH was chip-measured at 777 LSB24 max err — rejected)
+    # form above (no TF32)
     if blocks is not None:
         zs = [jnp.einsum("cku,pu->ckp", w[:, :, lo:lo + pan.shape[1]],
                          jnp.asarray(pan),
@@ -397,7 +417,7 @@ def build_chain_coefs(plans: Sequence[PhasePlan], dtype):
     every consumer of the phase path (streaming step, sharded tiles)."""
     n_terms = [sum(len(t) for t in p.terms) for p in plans]
     coefs = tuple(
-        (jnp.asarray(plan_dense_coefs(p), dtype=dtype)
+        (jnp.asarray(split_dense_coefs(plan_dense_coefs(p)), dtype=dtype)
          if n > _MATMUL_TERM_THRESHOLD else
          tuple(jnp.asarray([t.coef for t in terms], dtype=dtype)
                for terms in p.terms))

@@ -1,17 +1,17 @@
 """Device-side DSD -> PCM DSP: bit unpack, cascaded polyphase FIR
 resampling, level scale, dither, requantization, peak tracking.
 
-This is the TPU-native replacement for the reference engine's inner
+This is the device-side replacement for the reference engine's inner
 conversion loop (reference call site src/main.rs:429 `do_conversion`;
 structure inferred in SURVEY.md §3.5). Where the reference streams 4096-
 byte blocks through a scalar FIR on the CPU, this module processes
 multi-megabyte *tiles* as a handful of XLA ops:
 
-- 1-bit -> ±1 expansion is a vectorized shift/mask (VPU work, fused by
-  XLA into the first convolution's input pipeline);
+- 1-bit -> ±1 expansion is a vectorized shift/mask (fused by XLA into
+  the first convolution's input pipeline);
 - each resampling stage is ONE `lax.conv_general_dilated` with
   `lhs_dilation=L` (polyphase interpolation) and `window_strides=M`
-  (decimation) — XLA lowers strided/dilated convolution onto the MXU;
+  (decimation);
 - streaming across tiles is exact: every stage carries a history buffer
   of its last (taps-1)/L input samples through the jitted step (donated,
   so state stays on device);
@@ -88,8 +88,9 @@ def _stage_conv(x: jax.Array, taps: jax.Array, L: int, M: int,
         lhs_dilation=(L,),
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=lhs.dtype,
-        # true f32 accumulation on TPU (the MXU's default bf16 passes
-        # sit ~1e-3 above the dither floor; see ops/phase.py einsum note)
+        # true f32 products and accumulation: no TF32 on a GPU (~1e-3
+        # relative error, far above the dither floor; see the
+        # ops/phase.py einsum note)
         precision=jax.lax.Precision.HIGHEST,
     )
     return out[:, 0, :]
@@ -133,6 +134,16 @@ def upfirdn_reference(taps: np.ndarray, x: np.ndarray, L: int, M: int) -> np.nda
     full = _upfirdn(taps, x, up=L, down=M, axis=-1)
     n_out = x.shape[-1] * L // M
     return full[..., :n_out]
+
+
+def chain_reference(chain: Sequence[Stage], planes: np.ndarray) -> np.ndarray:
+    """Host float64 oracle for a whole cascade: (C, B) MSB-first DSD
+    bytes -> (C, n_out) samples, zero history before the first bit."""
+    y = np.unpackbits(np.asarray(planes, dtype=np.uint8),
+                      axis=1).astype(np.float64) * 2 - 1
+    for s in chain:
+        y = upfirdn_reference(s.taps, y, s.L, s.M)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -232,21 +232,3 @@ def test_flac_oversized_picture_dropped_not_crashed():
     assert st.md5_ok
     assert st.comments.get("TITLE") == "Tone"
     assert not st.pictures  # oversized art dropped, audio intact
-
-
-class TestTransferChunking:
-    def test_chunked_device_put_equivalence(self):
-        """All three upload shapes land byte-identical: sub-chunk (plain
-        device_put), multi-chunk with a ragged tail, and chunking
-        disabled (the DSD2DXD_H2D_CHUNK_BYTES=0 PCIe-host path)."""
-        from dsd2dxd_tpu.pipeline.transfer import chunked_device_put
-
-        rng = np.random.default_rng(0)
-        x = rng.integers(0, 256, size=(2, 3 * 512 * 1024 + 1315),
-                         dtype=np.uint8)
-        np.testing.assert_array_equal(
-            np.asarray(chunked_device_put(x[:, :1000])), x[:, :1000])
-        np.testing.assert_array_equal(
-            np.asarray(chunked_device_put(x)), x)
-        np.testing.assert_array_equal(
-            np.asarray(chunked_device_put(x, chunk_bytes=1 << 62)), x)

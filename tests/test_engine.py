@@ -278,8 +278,7 @@ def test_cancel(tone_dsf, tmp_path):
 def test_container_to_wav_njad(tone_dsf, tmp_path):
     """End-to-end NJAD conversion through the engine: device emits
     float32 tiles, the host requantizer (_make_sink wrap) quantizes to
-    24-bit, the writer gets ints. Previously only bench config 3 (TPU-
-    gated) drove this path. Pins: valid WAV, |error| <= 1 LSB vs the
+    24-bit, the writer gets ints. Pins: valid WAV, |error| <= 1 LSB vs the
     float conversion, deterministic across runs, state freed."""
     kw = dict(bit_depth=24, output=OutputType.WAV, level_db=0.0,
               output_rate=352800, filt=FilterType.EQUIRIPPLE,
@@ -317,8 +316,8 @@ def test_container_to_wav_njad(tone_dsf, tmp_path):
 def test_deep_cells_through_container_path(rate_hz, out_hz, tmp_path):
     """The deep rate-matrix cells (SURVEY §2.5 frontier; VERDICT r3
     item 7) exercised through the FULL container->engine path — DSF
-    parse, tile loop, dither, WAV write — not only via chipcheck's bare
-    device steps. Fixture is a real written-and-reparsed .dsf."""
+    parse, tile loop, dither, WAV write — not only via bare device
+    steps. Fixture is a real written-and-reparsed .dsf."""
     from dsd2dxd_tpu.formats.dsf import write_dsf
     from dsd2dxd_tpu.ops.dsm import synth_tone_dsd
 

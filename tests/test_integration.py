@@ -340,13 +340,19 @@ def test_engine_aiff_24bit_with_id3(tmp_path):
     tag must ride along in an 'ID3 ' chunk (the id3-crate convention)
     and stdlib aifc must read the audio. Completes engine-level
     coverage of all five output types."""
-    import shutil
+    from dsd2dxd_tpu.formats.dff import write_dff
+    from dsd2dxd_tpu.formats.id3 import Id3Frame, Id3Tag
+    from dsd2dxd_tpu.ops.dsm import synth_tone_dsd
 
     aifc_mod = pytest.importorskip("aifc")
-    src_ref = "/root/reference/id3_test/dff/1kHz_stereo_i.dff"
     src = tmp_path / "in" / "tone.dff"
     src.parent.mkdir()
-    shutil.copy(src_ref, src)
+    tag_in = Id3Tag(frames=[
+        Id3Frame.text_frame("TIT2", "1kHz Test Tone DSD64"),
+        Id3Frame.text_frame("TPE1", "dsd2dxd")])
+    write_dff(src, synth_tone_dsd(1000.0, 0.25, 2_822_400, amplitude=0.5,
+                                  channels=2),
+              2_822_400, id3=tag_in.to_bytes())
     conv = Converter.from_container(
         bit_depth=24, output=OutputType.AIFF, dither=DitherType.TPDF,
         output_rate=88200, level_db=0.0, filt=FilterType.EQUIRIPPLE,

@@ -8,7 +8,12 @@ import numpy as np
 import pytest
 
 from dsd2dxd_tpu.filters.design import Stage, get_chain
-from dsd2dxd_tpu.formats.dsd_types import DitherType, DsdRate, FilterType
+from dsd2dxd_tpu.formats.dsd_types import (
+    DitherType,
+    DsdRate,
+    FilterType,
+    rate_cells,
+)
 from dsd2dxd_tpu.ops.phase import (
     build_chain_plans,
     build_plan,
@@ -22,6 +27,7 @@ from dsd2dxd_tpu.ops.phase import (
 )
 from dsd2dxd_tpu.ops.resample import (
     StepConfig,
+    chain_reference,
     init_hists,
     make_step,
     upfirdn_reference,
@@ -93,22 +99,30 @@ def test_matmul_form_matches_sliced_form():
     np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
 
 
-ALL_CONFIGS = [
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 88200),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 96000),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 192000),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD64, 384000),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD128, 96000),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD256, 1411200),
-    (FilterType.EQUIRIPPLE, DsdRate.DSD512, 352800),
-    (FilterType.XLD, DsdRate.DSD64, 176400),
-    (FilterType.DSD2PCM, DsdRate.DSD64, 352800),
-    (FilterType.CHEBYSHEV, DsdRate.DSD128, 88200),
-]
+ALL_CONFIGS = rate_cells()  # all 29 (bank, input rate, output rate) cells
 
 
-@pytest.mark.parametrize("filt,rate,out_hz", ALL_CONFIGS)
+def _cell_id(cell):
+    filt, rate, out_hz = cell
+    return f"{filt.name}-{rate.name}-{out_hz}"
+
+
+def short_tone(chain, rate, n_out=3000, channels=1):
+    """A -6 dBFS 1 kHz DSM tone long enough for ~n_out output frames,
+    rounded up to the chain's tile unit."""
+    from dsd2dxd_tpu.filters.design import chain_ratio
+    from dsd2dxd_tpu.ops.dsm import synth_tone_dsd
+
+    unit = chain_tile_unit_bits(build_chain_plans(chain))
+    bits = -(-int(n_out / chain_ratio(chain)) // unit) * unit
+    planes = synth_tone_dsd(1000.0, bits / rate.hz, rate.hz, amplitude=0.5,
+                            channels=channels)
+    assert planes.shape[1] * 8 == bits
+    return planes
+
+
+@pytest.mark.parametrize("filt,rate,out_hz", ALL_CONFIGS,
+                         ids=map(_cell_id, ALL_CONFIGS))
 def test_phase_step_equals_conv_step(filt, rate, out_hz):
     """Full jitted phase step == conv step, streaming across tiles.
     Compared on the float path: the only difference is f32 accumulation
@@ -135,17 +149,14 @@ def test_phase_step_equals_conv_step(filt, rate, out_hz):
         assert abs(float(p1) - float(p2)) < 1e-4
 
 
-def test_phase_full_chain_f32_error():
-    """Phase path vs the f64 upfirdn oracle: numerical noise below the
-    24-bit TPDF dither floor (same bound as the conv path)."""
-    from dsd2dxd_tpu.ops.dsm import synth_tone_dsd
-
-    planes = synth_tone_dsd(1000.0, 0.3, 2_822_400, amplitude=0.5, channels=1)
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
-    bits = np.unpackbits(planes, axis=1).astype(np.float64) * 2 - 1
-    y = bits
-    for s in chain:
-        y = upfirdn_reference(s.taps, y, s.L, s.M)
+@pytest.mark.parametrize("filt,rate,out_hz", ALL_CONFIGS,
+                         ids=map(_cell_id, ALL_CONFIGS))
+def test_phase_full_chain_f32_error(filt, rate, out_hz):
+    """Phase path vs the f64 upfirdn oracle, every cell: f32 summation
+    noise stays below the 24-bit TPDF dither floor (RMS sqrt(1/6) LSB)."""
+    chain = get_chain(filt, rate, out_hz)
+    planes = short_tone(chain, rate)
+    y = chain_reference(chain, planes)
     cfg = StepConfig(channels=1, tile_bytes=planes.shape[1], bit_depth=32,
                      dither=DitherType.NONE, level_db=0.0)
     step = make_phase_step(chain, cfg)
@@ -156,6 +167,50 @@ def test_phase_full_chain_f32_error():
     lsb24 = 2.0 ** -23
     assert np.sqrt(np.mean(err ** 2)) < 0.41 * lsb24
     assert np.abs(err).max() < 4 * lsb24
+
+
+def _walk_eqns(jaxpr):
+    for eqn in jaxpr.eqns:
+        yield eqn
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    yield from _walk_eqns(inner)
+
+
+@pytest.mark.parametrize("rate,out_hz", [
+    (DsdRate.DSD64, 352800),   # plain ÷2^k chain
+    (DsdRate.DSD256, 192000),  # 48k family: x160/147 matmul tail
+])
+def test_every_contraction_asks_for_highest_precision(rate, out_hz):
+    """Every dot_general and convolution on the device path (phase step)
+    and in the conv reference carries Precision.HIGHEST: on a GPU the
+    default lets f32 matmuls run in TF32 (~1e-3 relative error), far
+    above the 24-bit dither floor, and the CPU never shows it."""
+    chain = get_chain(FilterType.EQUIRIPPLE, rate, out_hz)
+    plans = build_chain_plans(chain)
+    unit = chain_tile_unit_bits(plans)
+    cfg = StepConfig(channels=2, tile_bytes=unit * 4 // 8 or 1,
+                     bit_depth=24, dither=DitherType.TPDF, level_db=0.0)
+    x = jnp.zeros((2, cfg.tile_bytes), jnp.uint8)
+    key = jax.random.PRNGKey(0)
+    found = []
+    for step, hists in (
+            (make_phase_step(chain, cfg, jit=False),
+             init_phase_hists(plans, 2)),
+            (make_step(chain, cfg, jit=False), init_hists(chain, 2))):
+        jaxpr = jax.make_jaxpr(step)(x, hists, key).jaxpr
+        for eqn in _walk_eqns(jaxpr):
+            if eqn.primitive.name in ("dot_general", "conv_general_dilated"):
+                prec = eqn.params["precision"]
+                precs = prec if isinstance(prec, tuple) else (prec,)
+                assert all(p == jax.lax.Precision.HIGHEST for p in precs), (
+                    eqn.primitive.name, prec)
+                found.append(eqn.primitive.name)
+    assert "conv_general_dilated" in found
+    if out_hz % 48000 == 0:
+        assert "dot_general" in found
 
 
 def test_engine_uses_phase_path(tmp_path):
@@ -187,8 +242,7 @@ def test_banded_natural_matches_matmul_streaming():
     48k-family ×160/147 stage and stay in lockstep with the phase-major
     matmul form across streamed tiles — including the (C, p_in, 1)
     history hand-off the two forms share (states are interchangeable, so
-    fused.make_fused_rational_step can dispatch on eligibility without a
-    state migration)."""
+    a step can switch forms without a state migration)."""
     from dsd2dxd_tpu.ops.phase import (
         interleave_phases,
         plan_banded_natural,
@@ -227,7 +281,7 @@ def test_banded_natural_blocked_matches_unblocked():
     be taps-exact: each panel is a slice of the band, so the blocked
     einsum reproduces the unblocked one to f32 summation-order noise,
     and the panels jointly cover every nonzero of the band exactly
-    once. Gates the tail_block dispatch in make_fused_rational_step."""
+    once."""
     from dsd2dxd_tpu.ops.phase import (
         plan_banded_natural,
         plan_banded_natural_blocks,

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh
 (tests/conftest.py): overlap-save tile parallelism (parallel/sharded.py),
 its engine integration (DSD2DXD_SHARD_STREAM=1), and file-level
-device round-robin in the CLI — the TPU mappings of the reference's
+device round-robin in the CLI — the device mappings of the reference's
 Rayon file fan-out (reference src/main.rs:279-297; SURVEY.md §2.6, §5
 long-context row)."""
 
@@ -415,197 +415,46 @@ def test_convert_stream_tiled_rational_chain():
     assert abs(peak - ref_peak) < 1e-3
 
 
-# ---------------------------------------------------------------------------
-# Fused-kernel per-shard body (VERDICT r4 weak 5: the TPU production
-# path inside shard_map; parallel/sharded._resolve_body)
-# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rate,out_hz", [
+    (DsdRate.DSD128, 352800),
+    (DsdRate.DSD256, 352800),
+    (DsdRate.DSD512, 352800),
+    (DsdRate.DSD256, 192000),   # 48k family: x160/147 tail per tile
+])
+def test_chunked_phase_body_matches_streaming(rate, out_hz):
+    """convert_stream_tiled_chunked on 4 devices (each tile runs the
+    phase body) against one streaming pass, float undithered, past the
+    idle-pad warmup: f32 summation order only."""
+    from dsd2dxd_tpu.parallel.sharded import (
+        _chain_unit_bytes,
+        convert_stream_tiled_chunked,
+    )
 
-
-def _shardcheck():
-    """The chip gate's module (tools/shardcheck.py): its streaming
-    oracles are the SHARED single copy this file also validates
-    against, so the CI test and the hardware gate cannot drift."""
-    sys_tools = str(Path(__file__).resolve().parent.parent / "tools")
-    import sys
-
-    if sys_tools not in sys.path:
-        sys.path.insert(0, sys_tools)
-    import shardcheck
-
-    return shardcheck
-
-
-@pytest.mark.parametrize("bit_depth", [32, 24])
-def test_fused_body_bit_exact_vs_streaming_fused(bit_depth):
-    """body="fused": each shard runs the production Pallas kernel with
-    its tile's halo-prefix words as the kernel's own streaming halo
-    state — so the sharded output is BIT-EXACT against the streaming
-    fused path (not merely translation-invariance-equal), and the
-    phase body stays within the cross-path reduction-order band."""
-    n_dev = 4
-    mesh = _mesh_1d(n_dev)
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
+    mesh = _mesh_1d(4)
+    chain = get_chain(FilterType.EQUIRIPPLE, rate, out_hz)
     ratio = chain_ratio(chain)
-    planes = synth_tone_dsd(1000.0, 0.05, 2_822_400, amplitude=0.5,
+    planes = synth_tone_dsd(1000.0, 0.03, rate.hz, amplitude=0.5,
                             channels=2)
-    cfg = StepConfig(channels=2, tile_bytes=0, bit_depth=bit_depth,
-                     dither=DitherType.NONE, level_db=-1.0)
-    got, peak = convert_stream_tiled(planes, chain, cfg, mesh,
-                                     body="fused")
-    key = jax.random.PRNGKey(0x5D5D)
-    ref = _shardcheck().streaming_fused_oracle(planes, chain, cfg, key,
-                                               None, n_dev)
-    n = min(len(got), len(ref))
-    np.testing.assert_array_equal(got[:n], ref[:n])
-    # and the phase body agrees within the reduction-order band
-    pgot, ppeak = convert_stream_tiled(planes, chain, cfg, mesh,
-                                       body="phase")
-    skip = int(halo_bytes_for(chain) * 8 * ratio) + 1
-    n = min(len(got), len(pgot))
-    if bit_depth == 32:
-        assert np.abs(got[skip:n] - pgot[skip:n]).max() < 1e-5
-    else:
-        assert np.abs(got[skip:n].astype(np.int64)
-                      - pgot[skip:n].astype(np.int64)).max() <= 1
-    assert abs(peak - ppeak) < 1e-3
-
-
-def test_fused_body_chunked_matches_one_dispatch():
-    """convert_stream_tiled_chunked with the fused body: real previous
-    bytes ride the kernel's halo state across macro-chunks, so output
-    is bit-identical to the one-dispatch fused tiling (both idle-lead,
-    both exact-streaming semantics)."""
-    from dsd2dxd_tpu.parallel.sharded import convert_stream_tiled_chunked
-
-    n_dev = 4
-    mesh = _mesh_1d(n_dev)
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
-    planes = synth_tone_dsd(1000.0, 0.05, 2_822_400, amplitude=0.5,
-                            channels=2)
-    cfg = StepConfig(channels=2, tile_bytes=0, bit_depth=32,
-                     dither=DitherType.NONE, level_db=0.0)
-    ref, ref_peak = convert_stream_tiled(planes, chain, cfg, mesh,
-                                         body="fused")
+    unit = _chain_unit_bytes(chain)
+    cfg = StepConfig(channels=2, tile_bytes=-(-planes.shape[1] // 6 // unit)
+                     * unit, bit_depth=32, dither=DitherType.NONE,
+                     level_db=0.0)
     pos = [0]
 
     def read(n):
         if pos[0] >= planes.shape[1]:
             return None
         take = min(n, planes.shape[1] - pos[0])
-        o = planes[:, pos[0]:pos[0] + take]
+        out = planes[:, pos[0]:pos[0] + take]
         pos[0] += take
-        return o
+        return out
 
     got = []
-    cfg_c = StepConfig(channels=2, tile_bytes=16384, bit_depth=32,
-                       dither=DitherType.NONE, level_db=0.0)
-    peak = convert_stream_tiled_chunked(
-        read, chain, cfg_c, mesh, lambda t: got.append(t.copy()),
-        body="fused")
-    got = np.concatenate(got)
-    n = min(len(got), len(ref))
-    np.testing.assert_array_equal(got[:n], ref[:n])
-    assert abs(peak - ref_peak) < 1e-6
-
-
-def test_sharded_body_dispatch_decision(monkeypatch):
-    """_resolve_body: auto is phase off-TPU; the env knob mirrors the
-    argument with graceful degradation; a typo'd env raises ConfigError
-    loudly; the explicit body="fused" argument raises for ineligible
-    chains (rational tail) instead of silently running phase."""
-    from dsd2dxd_tpu.parallel.sharded import _resolve_body
-    from dsd2dxd_tpu.utils.errors import ConfigError
-
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
-    chain_r = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 96000)
-    assert _resolve_body(chain, None)[0] == "phase"  # CPU backend
-    assert _resolve_body(chain, "phase") == ("phase", False, False)
-    with pytest.raises(ValueError, match="body="):
-        _resolve_body(chain, "fusedd")  # explicit typo: loud too
-    mode, interp, forced = _resolve_body(chain, "fused")
-    assert mode == "fused" and interp and forced
-    monkeypatch.setenv("DSD2DXD_SHARDED_BODY", "fused")
-    mode, _interp, forced = _resolve_body(chain, None)
-    assert mode == "fused" and not forced  # env-selected: degradable
-    monkeypatch.setenv("DSD2DXD_SHARDED_BODY", "fusd")
-    with pytest.raises(ConfigError, match="DSD2DXD_SHARDED_BODY"):
-        _resolve_body(chain, None)
-    monkeypatch.delenv("DSD2DXD_SHARDED_BODY")
-    # explicit fused on an ineligible CFG (NJAD has no kernel path —
-    # the engine requantizes on host): loud. Rational CHAINS are
-    # eligible since the lead-warmup body landed
-    # (test_fused_rational_body_matches_streaming).
-    mesh = _mesh_1d(4)
-    planes = synth_tone_dsd(1000.0, 0.02, 2_822_400, channels=2)
-    cfg_njad = StepConfig(channels=2, tile_bytes=0, bit_depth=24,
-                          dither=DitherType.NJAD, level_db=0.0)
-    with pytest.raises(ValueError):
-        convert_stream_tiled(planes, chain_r, cfg_njad, mesh,
-                             body="fused")
-    # env-selected fused with the same cfg degrades to the phase body
-    monkeypatch.setenv("DSD2DXD_SHARDED_BODY", "fused")
-    got, _ = convert_stream_tiled(planes, chain_r, cfg_njad, mesh)
-    assert got.shape[1] == 2
-
-
-def test_fused_body_dithered_interpret_degrades(monkeypatch):
-    """Env-selected fused body + dithered cfg on a CPU mesh must fall
-    back to the phase body at BUILD time (ValueError from
-    _fused_tile_parts), not crash at the first dispatch — the on-core
-    PRNG has no CPU interpret lowering. The explicit body="fused"
-    argument stays loud."""
-    mesh = _mesh_1d(4)
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 352800)
-    planes = synth_tone_dsd(1000.0, 0.02, 2_822_400, channels=2)
-    cfg = StepConfig(channels=2, tile_bytes=0, bit_depth=24,
-                     dither=DitherType.TPDF, level_db=0.0)
-    with pytest.raises(ValueError, match="PRNG"):
-        convert_stream_tiled(planes, chain, cfg, mesh, body="fused")
-    monkeypatch.setenv("DSD2DXD_SHARDED_BODY", "fused")
-    got, _peak = convert_stream_tiled(planes, chain, cfg, mesh)
-    assert got.shape[1] == 2  # phase-body fallback converted it
-
-
-@pytest.mark.parametrize("bit_depth,dither", [
-    (32, DitherType.NONE),
-    (24, DitherType.TPDF),   # rational frames dither is threefry: works
-                             # in interpret mode
-])
-def test_fused_rational_body_matches_streaming(bit_depth, dither):
-    """The 48k-family sharded body (warm-hist tile: one head grid block
-    of real previous input seeds the tail history and yields the
-    head's streaming halo): every tile computes the SAME math as the
-    streaming rational path with the same per-tile seeds, past the
-    stream-head warmup region (the oracle starts hist at ZERO; the
-    sharded tile 0 warms its hist from the idle lead window). Float
-    output is BIT-EXACT. The dithered-quantized case is ±1 LSB with
-    >90% exact equality on this CPU mesh: the jitted shard_map program
-    may FUSE the tail einsum differently than the eager oracle (±1 ulp
-    at the few % of samples nearest a rounding boundary) — noise and
-    geometry are identical, so any diff is compilation-context
-    reduction order, not semantics. On the real TPU both paths hit the
-    MXU identically and chipcheck-style runs measure exact
-    (CHIP_SHARDCHECK_r05.log)."""
-    n_dev = 4
-    mesh = _mesh_1d(n_dev)
-    chain = get_chain(FilterType.EQUIRIPPLE, DsdRate.DSD64, 96000)
-    planes = synth_tone_dsd(1000.0, 0.05, 2_822_400, amplitude=0.5,
-                            channels=2)
-    cfg = StepConfig(channels=2, tile_bytes=0, bit_depth=bit_depth,
-                     dither=dither, level_db=-1.0)
-    got, _peak = convert_stream_tiled(planes, chain, cfg, mesh,
-                                      body="fused")
-    # the SHARED streaming oracle (tools/shardcheck.py): same tile
-    # geometry, carried (halo, hist) state, same seed derivation, no
-    # warm block
-    ref = _shardcheck().streaming_rational_oracle(
-        planes, chain, cfg, jax.random.PRNGKey(0x5D5D), None, n_dev)
-    n = min(len(got), len(ref))
-    skip = 1000  # zero-hist vs idle-warmed-hist stream head (above)
-    if bit_depth == 32:
-        np.testing.assert_array_equal(got[skip:n], ref[skip:n])
-    else:
-        d = (got[skip:n].astype(np.int64)
-             - ref[skip:n].astype(np.int64))
-        assert np.abs(d).max() <= 1, np.abs(d).max()
-        assert (d == 0).mean() > 0.9  # jit-vs-eager lowering (above)
+    peak = convert_stream_tiled_chunked(read, chain, cfg, mesh,
+                                        lambda t: got.append(t.copy()))
+    got = np.concatenate(got, axis=0)
+    ref, ref_peak = _streaming_oracle(planes, chain, cfg)
+    assert got.shape == ref.shape == (int(planes.shape[1] * 8 * ratio), 2)
+    skip = int(halo_bytes_for(chain) * 8 * ratio) + 1
+    assert np.max(np.abs(got[skip:] - ref[skip:])) < 1e-4
+    assert abs(peak - ref_peak) < 1e-3

@@ -1,10 +1,7 @@
-"""tools/timing.py — the shared device-timing harness (VERDICT r3
-weak 4: one copy of the digest/staged-tiles/timed-run pattern the four
-bench tools each carried). The chip-facing behavior can't be validated
-here; what CAN be pinned is the harness contract: the timed pass
-dispatches every tile exactly once, chains state, syncs once on a
-digest that depends on every output, and both protocols aggregate the
-way their consumers assume."""
+"""tools/timing.py — the shared device-timing harness. Pinned here:
+the timed pass dispatches every tile exactly once, chains state, waits
+once on a digest that depends on every output, and both protocols
+aggregate the way their consumers assume."""
 
 import sys
 from pathlib import Path

@@ -1,10 +1,9 @@
-"""Host-stage budget per BASELINE config (VERDICT r3 item 3).
+"""Host-stage budget per BASELINE config.
 
-The device kernels run >1000x RT; on a real (PCIe, multi-core) host the
-e2e ceiling for FLAC/NJAD configs is the HOST pipeline. This measures
-each host stage's per-core xRT at the shape its config feeds it, with
-the interleaved median-of-pairs protocol (this box's clock wanders
-±40% — CLAUDE.md), and derives the core count each config needs to keep
+For FLAC/NJAD configs the e2e ceiling may be the HOST pipeline. This
+measures each host stage's per-core xRT at the shape its config feeds
+it, with the interleaved median-of-pairs protocol (a shared host's
+clock wanders), and derives the core count each config needs to keep
 the aggregate at >=1000x RT.
 
 Stages:
@@ -13,8 +12,9 @@ Stages:
               pins that threading costs nothing, not that it gains)
   flac88    — native/src/flac.cc encode, 20-bit @ 88.2k (config 3)
   flac352   — 24-bit @ 352.8k (configs 1/5 FLAC output)
-  pack24    — byte planes -> s24 wire (native/src/pack.cc; configs 1/2)
-  deplane24 — byte planes -> (frames, C) int32 (FLAC input rebuild)
+  pack24    — the s24 drain of configs 1/2: device byte-plane pack
+              (pipeline/transfer.pack24_jitted), copy to host, and
+              interleave to wire bytes (unpack24_host)
 
     python tools/hostbudget.py [--seconds 4] [--pairs 5] [--write]
 
@@ -65,9 +65,10 @@ def stage_runners(secs: float, rng):
     stage, at the shape its BASELINE config feeds it. Shared by main()
     and the CI floor test (tests/test_hostbudget_floor.py) so the
     measured table and the regression gate cannot drift apart."""
+    import jax
+
     from dsd2dxd_tpu.native import lib as native
-    from dsd2dxd_tpu.ops.fused import PlaneLayout
-    from dsd2dxd_tpu.pipeline.transfer import deplane_frames, interleave_planes
+    from dsd2dxd_tpu.pipeline.transfer import pack24_jitted, unpack24_host
 
     n88 = int(secs * 88200)
     xf = (_music(n88, 88200, 20, rng).astype(np.float32)
@@ -89,20 +90,20 @@ def stage_runners(secs: float, rng):
     x88 = _music(n88, 88200, 20, rng)
     n352 = int(secs * 352800)
     x352 = _music(n352, 352800, 24, rng)
-    # production-like blocked layout: stereo, batch 8/C = 4
-    batch, sub = 4, 1764
-    cols = n352 // batch
-    layout = PlaneLayout(channels=2, rows=8, batch=batch, sub_cols=sub,
-                         cols=cols, bit_depth=24)
-    planes = rng.integers(0, 256, size=(3, 8, cols), dtype=np.uint8)
+    # the engine's drain input: a (frames, C) int32 tile on the device
+    pcm = jax.device_put(_music(n352, 352800, 24, rng))
+    pack = pack24_jitted(0)
+
+    def run_pack24():
+        unpack24_host(np.asarray(pack(pcm)))
+
     return {
         "njad": (run_njad, "DSDKIT_NJAD_THREADS"),
         "flac88": (lambda: flac_encode(x88, 88200, 20),
                    "DSDKIT_FLAC_THREADS"),
         "flac352": (lambda: flac_encode(x352, 352800, 24),
                     "DSDKIT_FLAC_THREADS"),
-        "pack24": (lambda: interleave_planes(planes, layout, n352), None),
-        "deplane24": (lambda: deplane_frames(planes, layout, n352), None),
+        "pack24": (run_pack24, None),
     }
 
 
@@ -119,6 +120,7 @@ def main() -> int:
 
     def measure(name, fn, audio_s, threads_env=None):
         """Median xRT over pairs*2 reps; optional threads=1-vs-2 A/B."""
+        fn()  # warm: builds the native lib, compiles the device pack
         if threads_env is None:
             ts = []
             for _ in range(args.pairs * 2):
@@ -148,8 +150,10 @@ def main() -> int:
     for name, (fn, threads_env) in stage_runners(secs, rng).items():
         measure(name, fn, secs, threads_env=threads_env)
 
-    out = {"seconds": secs, "pairs": args.pairs,
-           "cores": os.cpu_count(), "stages": rows}
+    import jax
+
+    out = {"seconds": secs, "pairs": args.pairs, "cores": os.cpu_count(),
+           "backend": jax.default_backend(), "stages": rows}
     print(json.dumps(out))
     if args.write:
         _write_md(out)
@@ -161,13 +165,13 @@ def _write_md(out) -> None:
     f88 = out["stages"]["flac88"]["xrt_per_core"]
     f352 = out["stages"]["flac352"]["xrt_per_core"]
     pack = out["stages"]["pack24"]["xrt_per_core"]
-    dep = out["stages"]["deplane24"]["xrt_per_core"]
 
     def cores(x):  # cores to keep a stage at >=1000x RT
         return max(1, int(np.ceil(1000.0 / x)))
 
-    md = f"""# Host-stage budget (measured {time.strftime('%Y-%m-%d')}, \
-{out['cores']}-core box, interleaved median-of-pairs)
+    md = f"""# Host-stage budget (measured {time.strftime('%Y-%m-%d')} on a \
+{out['cores']}-core CPU host, JAX backend {out['backend']}, \
+interleaved median-of-pairs)
 
 Per-core xRT of each HOST pipeline stage at the shape its BASELINE
 config feeds it (device stages overlap these via the engine's
@@ -182,15 +186,16 @@ host stage divided by the cores given to it). Refresh with
 stereo caps the speedup at 2x/stream — beyond that, streams scale) |
 | FLAC encode | 20-bit @ 88.2k stereo | {f88:.0f}x | {cores(f88)} |
 | FLAC encode | 24-bit @ 352.8k stereo | {f352:.0f}x | {cores(f352)} |
-| pack s24 wire | 24-bit @ 352.8k stereo | {pack:.0f}x | {cores(pack)} |
-| deplane int32 | 24-bit @ 352.8k stereo | {dep:.0f}x | {cores(dep)} |
+| pack s24 wire (device pack + copy + interleave) | 24-bit @ 352.8k stereo | {pack:.0f}x | {cores(pack)} |
 
 ## Per-config host ceilings
 
-- **Config 1/2 (WAV / raw s24)**: pack24 at {pack:.0f}x/core is the only
-  host stage — already >=1000x on one core.
+- **Config 1/2 (WAV / raw s24)**: the s24 drain at {pack:.0f}x/core is
+  the only host stage; ~{cores(pack)} core(s) keep it at >=1000x. With
+  JAX backend `cpu` its device pack runs on these same host cores, so
+  this row overstates the host cost of a GPU run.
 - **Config 3 (DSD128 -> 88.2k FLAC 20-bit NJAD)**: serial-per-core chain
-  NJAD ({njad:.0f}x) -> deplane -> FLAC ({f88:.0f}x). NJAD parallelizes
+  NJAD ({njad:.0f}x) -> FLAC ({f88:.0f}x). NJAD parallelizes
   across channels (2x for stereo, byte-identical — native/src/njad.cc),
   FLAC across blocks (DSDKIT_FLAC_THREADS). Aggregate >=1000x needs
   ~{cores(njad)} core(s) for NJAD + ~{cores(f88)} core(s) for FLAC when
@@ -201,12 +206,12 @@ stereo caps the speedup at 2x/stream — beyond that, streams scale) |
   parallel, so a batch saturates any core count with whole-stream
   parallelism first (SURVEY §2.6 file-level DP).
 
-Threading A/Bs on this box (1 core) pin that the threaded paths cost
-~nothing when cores are absent: threads1/threads2 ratios
+Threading A/Bs on this host (threads1/threads2 time ratios):
 {out['stages']['njad'].get('t1_over_t2')}, \
 {out['stages']['flac88'].get('t1_over_t2')}, \
-{out['stages']['flac352'].get('t1_over_t2')} (=1.0 is ideal; the
-speedup itself needs a multi-core host to demonstrate).
+{out['stages']['flac352'].get('t1_over_t2')} (>1 means the second
+thread helps; on a 1-core host the ratio only shows that threading
+costs nothing).
 """
     (_ROOT / "HOSTBUDGET.md").write_text(md)
     (_ROOT / "HOSTBUDGET.json").write_text(json.dumps(out, indent=1))
